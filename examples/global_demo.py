@@ -1,4 +1,4 @@
-"""Whole-Earth (global) inversion demo — the reference's OOM case, on TPU.
+"""Whole-Earth (global) inversion demo — the reference's OOM case, on one accelerator.
 
 Thin CLI shim: the whole path now lives in the unified driver
 (``examples/run.py global`` -> workloads.run_hmc with

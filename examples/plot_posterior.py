@@ -18,7 +18,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # sibling workloads.py
 try:
-    import gravinv3dhmc_tpu  # noqa: F401 — installed package?
+    import gravinv3dhmc  # noqa: F401 — installed package?
 except ImportError:  # uninstalled checkout: repo root on the path
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -27,10 +27,10 @@ import matplotlib
 matplotlib.use("Agg")
 import numpy as np
 
-from gravinv3dhmc_tpu import diagnostics, utils
-from gravinv3dhmc_tpu.ops import prism
-from gravinv3dhmc_tpu.ops import tesseroid as tess
-from gravinv3dhmc_tpu.vis import mpl as vmpl
+from gravinv3dhmc import diagnostics, utils
+from gravinv3dhmc.ops import prism
+from gravinv3dhmc.ops import tesseroid as tess
+from gravinv3dhmc.vis import mpl as vmpl
 
 import workloads as W
 

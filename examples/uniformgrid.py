@@ -15,16 +15,16 @@ import sys
 import time
 
 try:
-    import gravinv3dhmc_tpu  # noqa: F401 — installed package?
+    import gravinv3dhmc  # noqa: F401 — installed package?
 except ImportError:  # uninstalled checkout: repo root on the path
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.inversion import hmc
-from gravinv3dhmc_tpu.inversion.potential import GravMagModule
-from gravinv3dhmc_tpu.ops import prism
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.inversion import hmc
+from gravinv3dhmc.inversion.potential import GravMagModule
+from gravinv3dhmc.ops import prism
 
 
 def build_truth(rhomax=1.0):

@@ -1,0 +1,25 @@
+"""Reference-compatible import surface.
+
+Lets code written against ChuWeiEr/GravInv3DHMC's flat module layout run on
+this framework with only the import root changed:
+
+    # reference                      # here
+    import utils, mesher             from gravinv3dhmc.compat import utils, mesher
+    from gravmag import prism        from gravinv3dhmc.compat.gravmag import prism
+    from inversion import hmc        from gravinv3dhmc.compat.inversion import hmc
+
+Every name resolves to the accelerator implementation; numerical semantics
+and file formats match the reference (see module docstrings for the
+documented divergences).
+"""
+import sys as _sys
+
+from .. import constants, mesher, utils  # noqa: F401
+from . import gravmag, inversion, vis  # noqa: F401
+
+# register the borrowed top-level modules as real submodules so that
+# `from gravinv3dhmc.compat.mesher import PrismMesh` works like the
+# reference's `from mesher import PrismMesh`
+for _name, _mod in (("constants", constants), ("mesher", mesher),
+                    ("utils", utils)):
+    _sys.modules.setdefault(__name__ + "." + _name, _mod)

@@ -29,7 +29,7 @@ def main():
                                num_processes=num_procs, process_id=pid)
     import jax.numpy as jnp
 
-    from gravinv3dhmc_tpu.parallel import multihost, sharded
+    from gravinv3dhmc.parallel import multihost, sharded
 
     assert jax.process_count() == num_procs
     mesh = sharded.make_mesh()  # global: all devices of all processes

@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from gravinv3dhmc_tpu.inversion import hmc
+from gravinv3dhmc.inversion import hmc
 
 
 class _GaussModel:
@@ -68,7 +68,7 @@ def _run(sigmas, *, adapt, nsamples=256, nchains=4, seed=3):
 
 
 def _median_ess(out):
-    from gravinv3dhmc_tpu.diagnostics import effective_sample_size
+    from gravinv3dhmc.diagnostics import effective_sample_size
 
     n = int(out["n_stored"].min())
     return float(np.median(effective_sample_size(

@@ -19,26 +19,26 @@ pytestmark = pytest.mark.skipif(not os.path.isdir(REF),
 
 # reference module -> modules here that together must cover its surface
 PAIRS = {
-    "constants.py": ["gravinv3dhmc_tpu.constants"],
-    "utils.py": ["gravinv3dhmc_tpu.utils"],
-    "mesher/geometry.py": ["gravinv3dhmc_tpu.mesher"],
-    "mesher/mesh.py": ["gravinv3dhmc_tpu.mesher"],
-    "gravmag/prism.py": ["gravinv3dhmc_tpu.ops.prism"],
-    "gravmag/tesseroid.py": ["gravinv3dhmc_tpu.ops.tesseroid"],
+    "constants.py": ["gravinv3dhmc.constants"],
+    "utils.py": ["gravinv3dhmc.utils"],
+    "mesher/geometry.py": ["gravinv3dhmc.mesher"],
+    "mesher/mesh.py": ["gravinv3dhmc.mesher"],
+    "gravmag/prism.py": ["gravinv3dhmc.ops.prism"],
+    "gravmag/tesseroid.py": ["gravinv3dhmc.ops.tesseroid"],
     "gravmag/tesseroidforward.py":
-        ["gravinv3dhmc_tpu.compat.gravmag.tesseroidforward"],
+        ["gravinv3dhmc.compat.gravmag.tesseroidforward"],
     "gravmag/compressor1D.py":
-        ["gravinv3dhmc_tpu.compat.gravmag.compressor1D"],
+        ["gravinv3dhmc.compat.gravmag.compressor1D"],
     "gravmag/compressor3D.py":
-        ["gravinv3dhmc_tpu.compat.gravmag.compressor3D"],
-    "inversion/potential.py": ["gravinv3dhmc_tpu.compat.inversion.potential",
-                               "gravinv3dhmc_tpu.inversion"],
-    "inversion/hmc.py": ["gravinv3dhmc_tpu.compat.inversion.hmc",
-                         "gravinv3dhmc_tpu.inversion"],
-    "inversion/reginv.py": ["gravinv3dhmc_tpu.compat.inversion.reginv",
-                            "gravinv3dhmc_tpu.inversion"],
-    "vis/mpl.py": ["gravinv3dhmc_tpu.vis.mpl"],
-    "vis/myv.py": ["gravinv3dhmc_tpu.vis.myv"],
+        ["gravinv3dhmc.compat.gravmag.compressor3D"],
+    "inversion/potential.py": ["gravinv3dhmc.compat.inversion.potential",
+                               "gravinv3dhmc.inversion"],
+    "inversion/hmc.py": ["gravinv3dhmc.compat.inversion.hmc",
+                         "gravinv3dhmc.inversion"],
+    "inversion/reginv.py": ["gravinv3dhmc.compat.inversion.reginv",
+                            "gravinv3dhmc.inversion"],
+    "vis/mpl.py": ["gravinv3dhmc.vis.mpl"],
+    "vis/myv.py": ["gravinv3dhmc.vis.myv"],
 }
 
 
@@ -65,7 +65,7 @@ def test_compat_package_exports():
     """The reference's package __init__ re-exports resolve under compat
     (reference: inversion/__init__.py:1-2, gravmag/__init__.py,
     mesher/__init__.py:4)."""
-    from gravinv3dhmc_tpu import compat
+    from gravinv3dhmc import compat
     for name in ("HamitonianMC", "HMCSample", "GravMagModule",
                  "JointModule"):
         assert hasattr(compat.inversion, name)
@@ -77,8 +77,8 @@ def test_compat_package_exports():
                  "TesseroidMeshSegment"):
         assert hasattr(compat.mesher, name)
     # submodule-style imports work like the reference's flat layout
-    from gravinv3dhmc_tpu.compat.mesher import PrismMesh  # noqa: F401
-    from gravinv3dhmc_tpu.compat.utils import regular  # noqa: F401
+    from gravinv3dhmc.compat.mesher import PrismMesh  # noqa: F401
+    from gravinv3dhmc.compat.utils import regular  # noqa: F401
     assert hasattr(compat.vis, "mpl") and hasattr(compat.vis, "myv")
 
 

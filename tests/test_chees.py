@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 from jax import random
 
-from gravinv3dhmc_tpu.inversion import chees
+from gravinv3dhmc.inversion import chees
 
 
 def test_halton_low_discrepancy():
@@ -21,8 +21,8 @@ def test_halton_low_discrepancy():
 
 
 def test_static_trajectory_matches_dynamic():
-    """The masked lax.scan trajectory (the full-scale TPU-fault
-    workaround) must be bit-equivalent to the dynamic fori_loop: masked
+    """The masked lax.scan trajectory (static trip counts) must be
+    bit-equivalent to the dynamic fori_loop: masked
     steps pass state through, and the PRNG stream is shared."""
     prec = jnp.asarray(1.0 / np.linspace(1.0, 2.0, 6) ** 2, jnp.float32)
 
@@ -42,8 +42,8 @@ def test_static_trajectory_matches_dynamic():
 
 
 def test_chunked_runner_matches_one_shot_statistics():
-    """run_chees_chunked (the full-scale TPU-worker-crash fix: short
-    jitted blocks with the adaptation state carried across) must sample
+    """run_chees_chunked (short jitted blocks with the adaptation state
+    carried across) must sample
     the same target to the same moments as the one-shot runner."""
     scales = np.linspace(1.0, 3.0, 6)
     prec = jnp.asarray(1.0 / scales ** 2, jnp.float32)
@@ -138,8 +138,8 @@ def test_chees_sample_inversion(small_module):
 
 
 def test_chees_sample_chunked_mode(small_module):
-    """CheesSample(chunk_iters=...) — the block-dispatch mode that
-    survives the remote worker's single-program duration limit — must
+    """CheesSample(chunk_iters=...) — the block-dispatch mode of short
+    programs — must
     deliver the same API surface and a comparable posterior."""
     module, dobs, truth = small_module
     M = module.n_active

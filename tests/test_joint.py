@@ -4,10 +4,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.inversion.joint import JointModule
-from gravinv3dhmc_tpu.ops import prism
-from gravinv3dhmc_tpu.utils.units import ang2vec
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.inversion.joint import JointModule
+from gravinv3dhmc.ops import prism
+from gravinv3dhmc.utils.units import ang2vec
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +95,7 @@ def test_cross_gradient_zero_for_parallel_structures(joint_problem):
 
 
 def test_joint_hmc_runs(joint_problem):
-    from gravinv3dhmc_tpu.inversion import hmc
+    from gravinv3dhmc.inversion import hmc
     jm, rho, mag = joint_problem
     n = jm.n_active
     init = np.full(n, 0.001)

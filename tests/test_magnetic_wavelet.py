@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.inversion import hmc
-from gravinv3dhmc_tpu.inversion.potential import GravMagModule
-from gravinv3dhmc_tpu.ops import prism
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.inversion import hmc
+from gravinv3dhmc.inversion.potential import GravMagModule
+from gravinv3dhmc.ops import prism
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@ for every example configuration (SURVEY.md build order step 2)."""
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import mesher
+from gravinv3dhmc import mesher
 
 from conftest import load_reference_modules
 
@@ -150,7 +150,7 @@ class TestMeshBasics:
         np.testing.assert_allclose(m.zbot[:-1], m.ztop[1:])
 
     def test_rho2carve_roundtrip(self):
-        from gravinv3dhmc_tpu.utils import carve2rho, rho2carve
+        from gravinv3dhmc.utils import carve2rho, rho2carve
         rho = np.arange(10.0)
         mask = [2, 5]
         packed = rho2carve(rho, mask)

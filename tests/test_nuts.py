@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 from jax import random
 
-from gravinv3dhmc_tpu.inversion import nuts
+from gravinv3dhmc.inversion import nuts
 
 
 def test_nuts_recovers_anisotropic_gaussian():
@@ -67,10 +67,10 @@ def test_welford_matches_numpy():
 
 
 def test_nuts_sample_on_inversion_problem():
-    from gravinv3dhmc_tpu import mesher, utils
-    from gravinv3dhmc_tpu.inversion.nuts import NUTSSample
-    from gravinv3dhmc_tpu.inversion.potential import GravMagModule
-    from gravinv3dhmc_tpu.ops import prism
+    from gravinv3dhmc import mesher, utils
+    from gravinv3dhmc.inversion.nuts import NUTSSample
+    from gravinv3dhmc.inversion.potential import GravMagModule
+    from gravinv3dhmc.ops import prism
 
     bounds = (0, 500, 0, 500, 0, 300)
     spacing = (100, 100, 100)

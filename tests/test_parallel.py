@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 from jax import random
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.inversion.potential import GravMagModule
-from gravinv3dhmc_tpu.ops import prism
-from gravinv3dhmc_tpu.parallel import (
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.inversion.potential import GravMagModule
+from gravinv3dhmc.ops import prism
+from gravinv3dhmc.parallel import (
     make_mesh,
     make_sharded_chunk_sampler,
     make_sharded_potential,
@@ -238,7 +238,7 @@ def test_sharded_chunk_feature_parity_with_single_device(problem):
     thinning, runtime dt/inv_mass) must produce the SAME result sharded
     as on one device — round-4 verdict Missing #4: the sharded sampler
     was feature-frozen at round-2 capabilities."""
-    from gravinv3dhmc_tpu.inversion import hmc as hmc_mod
+    from gravinv3dhmc.inversion import hmc as hmc_mod
 
     module, dobs = problem
     M = module.n_active
@@ -319,7 +319,7 @@ def test_multihost_chain_slicing(monkeypatch):
     """chains_for_host / host_seed partition the global chain batch the way
     the reference partitions MPI ranks (seed + myrank, one folder per
     rank — reference: inversion/hmc.py:368-369)."""
-    from gravinv3dhmc_tpu.parallel import multihost
+    from gravinv3dhmc.parallel import multihost
 
     starts = []
     for pid in range(4):

@@ -11,14 +11,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.inversion.potential import (
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.inversion.potential import (
     GravMagModule,
     logistic_to_mw,
     mw_to_logistic,
     sensitivity_weighting,
 )
-from gravinv3dhmc_tpu.ops import fd, prism
+from gravinv3dhmc.ops import fd, prism
 
 
 @pytest.fixture(scope="module")

@@ -8,8 +8,8 @@ and cross-backend (f64 host vs f32 jax) agreement.
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import constants, mesher
-from gravinv3dhmc_tpu.ops import prism
+from gravinv3dhmc import constants, mesher
+from gravinv3dhmc.ops import prism
 
 
 def single_prism(x1=-50, x2=50, y1=-50, y2=50, z1=100, z2=200):

@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import mesher
+from gravinv3dhmc import mesher
 
 REF = "/root/reference/example/realdata"
 
@@ -40,9 +40,9 @@ def test_hmc_converges_to_reference_misfit_level():
     example/realdata/logout_T0.txt tail)."""
     import jax.numpy as jnp
 
-    from gravinv3dhmc_tpu import utils
-    from gravinv3dhmc_tpu.inversion import hmc
-    from gravinv3dhmc_tpu.inversion.potential import GravMagModule
+    from gravinv3dhmc import utils
+    from gravinv3dhmc.inversion import hmc
+    from gravinv3dhmc.inversion.potential import GravMagModule
 
     lons, lats, heights, dobs = np.loadtxt(
         os.path.join(REF, "data", "gravinv_12d05d.dat"),

@@ -6,9 +6,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.inversion.reginv import BootStrap, ConjugateGradient
-from gravinv3dhmc_tpu.ops import prism
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.inversion.reginv import BootStrap, ConjugateGradient
+from gravinv3dhmc.ops import prism
 
 
 def reference_cg_numpy(Aw, dobs, wdiag, mw0, apr, rhomin, rhomax, beta, q,
@@ -144,7 +144,7 @@ def test_cg_device_matches_host_cg(cg_problem):
     """cg_device (arrays threaded as jit args, the global warm-start
     path) must reproduce ConjugateGradient.CG up to f32/f64 on the same
     module."""
-    from gravinv3dhmc_tpu.inversion.reginv import cg_device
+    from gravinv3dhmc.inversion.reginv import cg_device
 
     inv, dobs, rho = cg_problem
     M = inv.msize
@@ -169,7 +169,7 @@ def test_cg_device_fixed_alpha_bounded_map(cg_problem):
     """Fixed-alpha projected CG (the bounded-MAP ladder mode, round-4
     verdict Missing #3): constant alpha from the k=0 step on, hard box
     projection, monotone objective descent."""
-    from gravinv3dhmc_tpu.inversion.reginv import cg_device
+    from gravinv3dhmc.inversion.reginv import cg_device
 
     inv, dobs, rho = cg_problem
     out = cg_device(inv._mod, dobs, (0.0, 1.0), regularization="Damping",

@@ -10,9 +10,9 @@ and the tf == bz identity for a vertical field."""
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import mesher
-from gravinv3dhmc_tpu.ops import prism as P
-from gravinv3dhmc_tpu.ops import tesseroid as T
+from gravinv3dhmc import mesher
+from gravinv3dhmc.ops import prism as P
+from gravinv3dhmc.ops import tesseroid as T
 
 R = T.MEAN_EARTH_RADIUS
 D2R = np.pi / 180
@@ -79,8 +79,8 @@ def test_spherical_magnetic_inversion_end_to_end():
     the reference cannot run at all — recovers the magnetized body."""
     import jax.numpy as jnp
 
-    from gravinv3dhmc_tpu.inversion import hmc
-    from gravinv3dhmc_tpu.inversion.potential import GravMagModule
+    from gravinv3dhmc.inversion import hmc
+    from gravinv3dhmc.inversion.potential import GravMagModule
 
     mrange = (-0.2, 0.2, -0.2, 0.2, 0.0, -6000.0)
     spacing = (-2000.0, 0.05, 0.05)
@@ -109,7 +109,7 @@ def test_spherical_magnetic_inversion_end_to_end():
     # magnetized block comes back sharply
     import jax.numpy as jnp
 
-    from gravinv3dhmc_tpu.inversion.reginv import cg_device
+    from gravinv3dhmc.inversion.reginv import cg_device
 
     cg = cg_device(module, dobs, (0.0, 3.0), regularization="Damping",
                    maxk=400, dtype=jnp.float64, alpha=0.01)
@@ -146,7 +146,7 @@ def test_joint_module_spherical():
     potential evaluates."""
     import jax.numpy as jnp
 
-    from gravinv3dhmc_tpu.inversion.joint import JointModule
+    from gravinv3dhmc.inversion.joint import JointModule
 
     mrange = (-0.1, 0.1, -0.1, 0.1, 0.0, -6000.0)
     spacing = (-2000.0, 0.05, 0.05)
@@ -176,7 +176,7 @@ def test_gravmag_module_spherical_magnetic():
     potential runs."""
     import jax.numpy as jnp
 
-    from gravinv3dhmc_tpu.inversion.potential import GravMagModule
+    from gravinv3dhmc.inversion.potential import GravMagModule
 
     mrange = (-0.1, 0.1, -0.1, 0.1, 0.0, -6000.0)
     spacing = (-2000.0, 0.05, 0.05)

@@ -7,8 +7,8 @@ spherical path.
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import constants, mesher
-from gravinv3dhmc_tpu.ops import tesseroid as tess
+from gravinv3dhmc import constants, mesher
+from gravinv3dhmc.ops import tesseroid as tess
 
 R = constants.MEAN_EARTH_RADIUS
 
@@ -98,7 +98,7 @@ class TestBackends:
 class TestSphericalModule:
     def test_gravmag_module_spherical(self):
         import jax.numpy as jnp
-        from gravinv3dhmc_tpu.inversion.potential import GravMagModule
+        from gravinv3dhmc.inversion.potential import GravMagModule
         # small global-style mesh
         bounds = (-180, 180, -90, 90, 0, -600000)
         spacing = (-300000, 30, 30)
@@ -214,7 +214,7 @@ def test_device_kernel_matches_host():
     engine to f32 rounding — both with cached-kernel corrections and with
     engine-computed corrections (the link-safe global path)."""
     import jax.numpy as jnp
-    from gravinv3dhmc_tpu.ops import tesseroid as tess
+    from gravinv3dhmc.ops import tesseroid as tess
 
     cells = np.array([
         [-10.0, 10.0, -10.0, 10.0, 0.0, -5e4],
@@ -247,7 +247,7 @@ def test_subdivision_mask_backends_and_pair_engines_agree():
     """The device-side f32 pair test must select the same near-field set
     as the host f64 broadcast, and both pair-subset engines (native C++,
     vectorised numpy worklist) must reproduce the full-matrix entries."""
-    from gravinv3dhmc_tpu.ops import tesseroid as tess
+    from gravinv3dhmc.ops import tesseroid as tess
 
     cells = np.array([[w, w + 3.0, -1.5, 1.5, -3e5, -6e5]
                       for w in range(-180, 180, 3)], np.float64)
@@ -299,7 +299,7 @@ def test_device_kernel_per_entry_accuracy_midrange():
     where the classic l_sqr form cancels catastrophically in f32. The
     stable haversine form must hold every entry to ~1e-5 relative, not
     just relative to the matrix max."""
-    from gravinv3dhmc_tpu.ops import tesseroid as tess
+    from gravinv3dhmc.ops import tesseroid as tess
 
     # global-case geometry: 3-degree tesseroid ring at depth — the mask
     # boundary sits at ~530 km where f32 l_sqr loses ~1e-4 classically

@@ -4,8 +4,8 @@ import json
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import constants, utils
-from gravinv3dhmc_tpu.config import HMCConfig, load_setpmts
+from gravinv3dhmc import constants, utils
+from gravinv3dhmc.config import HMCConfig, load_setpmts
 
 from conftest import load_reference_modules
 

@@ -11,9 +11,9 @@ import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 
-from gravinv3dhmc_tpu import mesher, utils
-from gravinv3dhmc_tpu.vis import mpl as vmpl
-from gravinv3dhmc_tpu.vis import myv
+from gravinv3dhmc import mesher, utils
+from gravinv3dhmc.vis import mpl as vmpl
+from gravinv3dhmc.vis import myv
 
 
 @pytest.fixture(autouse=True)
@@ -77,7 +77,7 @@ def test_coastline_from_topo_grd():
     covers the binary DSRB reader (the reference's own realdata grids are
     DSRB, which its DSAA-only loader could not open)."""
     import os
-    from gravinv3dhmc_tpu.vis.geodata import coastline_from_topo_grd
+    from gravinv3dhmc.vis.geodata import coastline_from_topo_grd
     grd = "/root/reference/example/realdata/data/topo_12d05d.grd"
     if not os.path.exists(grd):
         pytest.skip("reference realdata grid not present")

@@ -14,7 +14,7 @@ honest (the GLOBAL_r04 resolution_limit_evidence pattern):
   silently-wrong point estimate.
 
 Writes tools/magnetic_demo.json and prints one JSON line.
-Usage:  python tools/magnetic_demo.py     (TPU or CPU; ~2-4 min)
+Usage:  python tools/magnetic_demo.py     (GPU or CPU)
 """
 import json
 import os
@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from gravinv3dhmc_tpu.runtime.compile_cache import enable_compile_cache
+from gravinv3dhmc.runtime.compile_cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -33,15 +33,15 @@ import jax
 import jax.numpy as jnp
 from jax import random
 
-from gravinv3dhmc_tpu import mesher
-from gravinv3dhmc_tpu.inversion.chees import run_chees_chunked
-from gravinv3dhmc_tpu.inversion.potential import (GravMagModule,
+from gravinv3dhmc import mesher
+from gravinv3dhmc.inversion.chees import run_chees_chunked
+from gravinv3dhmc.inversion.potential import (GravMagModule,
                                                   logistic_to_mw,
                                                   mw_to_logistic)
-from gravinv3dhmc_tpu.inversion.reginv import cg_device
-from gravinv3dhmc_tpu.ops import tesseroid as tess
-from gravinv3dhmc_tpu.utils import regular
-from gravinv3dhmc_tpu.utils.units import dircos
+from gravinv3dhmc.inversion.reginv import cg_device
+from gravinv3dhmc.ops import tesseroid as tess
+from gravinv3dhmc.utils import regular
+from gravinv3dhmc.utils.units import dircos
 
 INC, DEC = 50.0, -5.0
 
